@@ -1,4 +1,4 @@
-"""Reference module alias: ``coolpuppy.coolpup`` -> the TPU engine
+"""Reference module alias: ``coolpuppy.coolpup`` -> the accelerator engine
 (reference coolpup.py's public surface: CoordCreator, PileUpper, pileup,
 and the free helpers)."""
 

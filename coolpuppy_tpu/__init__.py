@@ -1,16 +1,16 @@
-"""coolpuppy-tpu: TPU-native sparse pile-up (APA) engine for Hi-C data.
+"""coolpuppy-tpu: accelerator-native sparse pile-up (APA) engine for Hi-C
+data.
 
 Same capabilities as open2c/coolpuppy (reference), re-architected for
-JAX/XLA/Pallas on TPU. See DESIGN.md for the architecture.
+JAX/XLA on an NVIDIA GPU. See DESIGN.md for the architecture.
 """
 
 def _tune_allocator():
     """Keep large numpy buffers on the reusable glibc heap.
 
     By default glibc mmap()s allocations over ~128 KB and munmap()s them
-    on free, so every large temporary re-pays first-touch page faults —
-    ~50 us apiece on virtualized hosts, which made a fresh 180 MB pixel
-    read cost ~0.8 s and a 245 MB window stack ~3 s (round-5 profiles).
+    on free, so every large temporary re-pays first-touch page faults, which
+    are slow on virtualized hosts.
     Raising M_MMAP_THRESHOLD keeps those buffers on the heap where freed
     blocks are reused already-faulted; the 256 MB trim threshold still
     returns memory to the OS once more than that sits free at the heap

@@ -174,9 +174,6 @@ def _read_features(path, features_format):
 
 
 def main(argv=None):
-    from ..jax_setup import honor_platform_env
-
-    honor_platform_env()
     parser = parse_args_coolpuppy()
     args = parser.parse_args(argv)
 

@@ -23,9 +23,6 @@ def parse_args_divide_pups():
 
 
 def main(argv=None):
-    from ..jax_setup import honor_platform_env
-
-    honor_platform_env()
     args = parse_args_divide_pups().parse_args(argv)
     logging.info(args)
     if len(args.input_pups) != 2:

@@ -110,9 +110,6 @@ def parse_args_plotpuppy():
 
 
 def main(argv=None):
-    from ..jax_setup import honor_platform_env
-
-    honor_platform_env()
     args = parse_args_plotpuppy().parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.logLevel))
     logger.setLevel(getattr(logging, args.logLevel))

@@ -42,8 +42,8 @@ def _chrom_as_str_categorical(col):
     grouping, label formatting, sort order — categories are reordered to
     str order so categorical sorts match astype(str) sorts even for
     numeric chrom columns), but O(unique) instead of O(rows): a plain
-    astype(str) on a 2M-row Arrow-backed bedpe column iterates per element
-    (~3 s of the round-4 bedpe wall was exactly that). Distinct values
+    astype(str) on a 2M-row Arrow-backed bedpe column iterates per element.
+    Distinct values
     whose str() forms collide (e.g. 1 and "1") fall back to the
     reference's elementwise cast."""
     if isinstance(col.dtype, pd.CategoricalDtype):
@@ -365,7 +365,7 @@ class CoordCreator:
         already-sorted check first (free for pre-sorted files and for the
         engine's own re-checks), else np.lexsort + ONE block-wise
         positional take — pandas sort_values re-consolidated the whole
-        block manager (~0.9 s of the round-4 bedpe wall at 2M rows).
+        block manager.
         Categorical chroms sort by category code."""
         keys = []
         for c in cols:
@@ -626,8 +626,8 @@ class CoordCreator:
         Frame assembly is take-per-column — at millions of pairs the
         untouched feature columns (names, scores, Arrow strings) dominated
         coordinate-generation time, so the engine hints exactly what its
-        device path reads (VERDICT r3 #1 family: host coordgen was the
-        plain-mode wall)."""
+        device path reads (host coordinate generation sets the
+        pace of plain runs)."""
         if columns is None:
             return None
         if self.kind == "bedpe":

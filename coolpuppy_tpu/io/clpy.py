@@ -14,7 +14,6 @@ import json
 import os
 import re
 
-import h5py
 import numpy as np
 import pandas as pd
 from scipy import sparse as sp
@@ -92,6 +91,8 @@ def save_pileup_df(filename, df, metadata=None, mode="w", compression="lzf"):
     for _, row in df[ann_cols].iterrows():
         records.append({c: _jsonable(row[c]) for c in ann_cols})
 
+    import h5py
+
     with h5py.File(filename, mode if mode in ("w", "x") else "a") as f:
         f.create_dataset(
             "annotation_json",
@@ -137,6 +138,8 @@ def save_pileup_df(filename, df, metadata=None, mode="w", compression="lzf"):
 
 def load_pileup_df(filename, quaich=False, skipstripes=False):
     """Load a .clpy file (reference lib/io.py:98–156 counterpart)."""
+    import h5py
+
     with h5py.File(filename, "r") as f:
         metadata = dict(f["attrs"].attrs)
         if "annotation_json" in f:

@@ -6,7 +6,8 @@ coolpup.py:1024–1098: ``clr.matrix(sparse=True, balance=...).fetch``,
 directly on h5py/libhdf5. Range queries use the ``indexes/bin1_offset`` table so
 a region fetch reads one contiguous pixel slab per row-span.
 
-Supports cooler URI syntax ``path::group`` (e.g. ``x.mcool::/resolutions/10000``).
+Supports cooler URI syntax ``path::group`` (e.g. ``x.mcool::/resolutions/10000``),
+and an in-memory cooler (``io.coolwrite.cool_layout``) on hosts without h5py.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 
-import h5py
 import numpy as np
 import pandas as pd
 from scipy import sparse as sp
+
+from .coolwrite import MemoryCool
 
 
 @dataclass
@@ -97,8 +99,11 @@ class _MatrixSelector:
 
 class Cooler:
     def __init__(self, uri):
-        self.uri = str(uri)
-        self.filename, self.group = parse_cooler_uri(uri)
+        """``uri``: a ``.cool`` path (``path::group`` allowed) or a
+        ``MemoryCool``."""
+        self._memory = uri if isinstance(uri, MemoryCool) else None
+        self.uri = "<memory>" if self._memory is not None else str(uri)
+        self.filename, self.group = parse_cooler_uri(self.uri)
         self._lock = threading.Lock()
         self._extra_bin_cols = {}
         with self._open() as grp:
@@ -112,12 +117,6 @@ class Cooler:
             self._chrom_offset = grp["indexes/chrom_offset"][:].astype(np.int64)
             self.n_bins = int(grp["bins/start"].shape[0])
             self.n_pixels = int(grp["pixels/bin1_id"].shape[0])
-            # stored-count dtype: integer counts (the standard cooler
-            # schema) make exact integer wire compression provable from
-            # a cheap max check (ints <= 2^24 survive the f32 read)
-            self.counts_are_int = (
-                grp["pixels/count"].dtype.kind in "iu"
-            )
         self._bins_df = None
         self._bin1_offset = None
         self._n_bins = self.n_bins
@@ -127,6 +126,11 @@ class Cooler:
 
     @contextmanager
     def _open(self):
+        if self._memory is not None:
+            yield self._memory
+            return
+        import h5py
+
         with h5py.File(self.filename, "r") as f:
             yield f[self.group]
 
@@ -229,7 +233,7 @@ class Cooler:
         with self._lock, self._open() as grp:
             bin1 = grp["pixels/bin1_id"][p_lo:p_hi]
             bin2 = grp["pixels/bin2_id"][p_lo:p_hi]
-            count = grp["pixels/count"].astype(dtype)[p_lo:p_hi]
+            count = grp["pixels/count"][p_lo:p_hi].astype(dtype, copy=False)
         bin1 = bin1.astype(np.int64, copy=False)
         bin2 = bin2.astype(np.int64, copy=False)
         if lo2 <= 0 and hi2 >= self._n_bins:

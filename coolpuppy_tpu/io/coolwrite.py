@@ -1,28 +1,52 @@
-"""Writer for `.cool` (HDF5) files.
+"""Writer for `.cool` (HDF5) files, and the same layout held in memory.
 
 The reference depends on binary test coolers that are not redistributable
 (reference .MISSING_LARGE_BLOBS); this writer lets tests synthesize compatible
 fixtures and lets users convert matrices. Schema follows the cooler v3 layout
 (chroms/bins/pixels/indexes + attrs) that `io/cool.py` reads.
+``cool_layout`` builds that layout as a ``MemoryCool``, which ``Cooler``
+reads like a file on hosts without h5py.
 """
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
 
-def write_cool(
-    path,
+class MemoryCool:
+    """A cooler's groups, datasets and attrs held in memory: ``grp[path]``
+    returns a dataset (numpy array) or a sub-group, ``keys()`` lists a
+    group's members in h5py's (sorted) order."""
+
+    def __init__(self, datasets, attrs=None):
+        self._data = datasets
+        self.attrs = dict(attrs or {})
+
+    def __getitem__(self, key):
+        if key in self._data:
+            return self._data[key]
+        prefix = key.rstrip("/") + "/"
+        sub = {
+            k[len(prefix):]: v for k, v in self._data.items()
+            if k.startswith(prefix)
+        }
+        if not sub:
+            raise KeyError(key)
+        return MemoryCool(sub)
+
+    def keys(self):
+        return sorted({k.split("/")[0] for k in self._data})
+
+
+def cool_layout(
     chromsizes,
     binsize,
     pixels,
     weights=None,
     extra_bin_cols=None,
-    group="/",
     assembly="unknown",
 ):
-    """Write a .cool file.
+    """The cooler v3 layout of a matrix as a ``MemoryCool``.
 
     Parameters
     ----------
@@ -53,43 +77,54 @@ def write_cool(
 
     bin1_offset = np.searchsorted(bin1, np.arange(n_bins + 1)).astype(np.int64)
 
+    attrs = {
+        "format": "HDF5::Cooler",
+        "format-version": 3,
+        "bin-type": "fixed",
+        "bin-size": int(binsize),
+        "storage-mode": "symmetric-upper",
+        "nchroms": len(chroms),
+        "nbins": n_bins,
+        "nnz": nnz,
+        "genome-assembly": assembly,
+        "generated-by": "coolpuppy-tpu",
+    }
+    data = {
+        "chroms/name": np.array(chroms, dtype=object),
+        "chroms/length": lengths,
+        "bins/chrom": chrom_ids.astype(np.int32),
+        "bins/start": starts,
+        "bins/end": ends,
+    }
+    if weights is not None:
+        data["bins/weight"] = np.asarray(weights, dtype=np.float64)
+    for name, arr in (extra_bin_cols or {}).items():
+        data[f"bins/{name}"] = np.asarray(arr)
+    data["pixels/bin1_id"] = bin1.astype(np.int64)
+    data["pixels/bin2_id"] = bin2.astype(np.int64)
+    if np.issubdtype(np.asarray(count).dtype, np.integer):
+        data["pixels/count"] = count.astype(np.int32)
+    else:
+        data["pixels/count"] = count.astype(np.float64)
+    data["indexes/chrom_offset"] = chrom_offset
+    data["indexes/bin1_offset"] = bin1_offset
+    return MemoryCool(data, attrs)
+
+
+def write_cool(path, chromsizes, binsize, pixels, weights=None,
+               extra_bin_cols=None, group="/", assembly="unknown"):
+    """Write a .cool file (arguments as in ``cool_layout``)."""
+    import h5py
+
+    layout = cool_layout(
+        chromsizes, binsize, pixels, weights=weights,
+        extra_bin_cols=extra_bin_cols, assembly=assembly,
+    )
     with h5py.File(path, "w") as f:
         grp = f if group in ("/", "") else f.create_group(group)
-        grp.attrs["format"] = "HDF5::Cooler"
-        grp.attrs["format-version"] = 3
-        grp.attrs["bin-type"] = "fixed"
-        grp.attrs["bin-size"] = int(binsize)
-        grp.attrs["storage-mode"] = "symmetric-upper"
-        grp.attrs["nchroms"] = len(chroms)
-        grp.attrs["nbins"] = n_bins
-        grp.attrs["nnz"] = nnz
-        grp.attrs["genome-assembly"] = assembly
-        grp.attrs["generated-by"] = "coolpuppy-tpu"
-
-        g = grp.create_group("chroms")
-        g.create_dataset(
-            "name", data=np.array(chroms, dtype=h5py.string_dtype())
-        )
-        g.create_dataset("length", data=lengths)
-
-        g = grp.create_group("bins")
-        g.create_dataset("chrom", data=chrom_ids.astype(np.int32))
-        g.create_dataset("start", data=starts)
-        g.create_dataset("end", data=ends)
-        if weights is not None:
-            g.create_dataset("weight", data=np.asarray(weights, dtype=np.float64))
-        for name, arr in (extra_bin_cols or {}).items():
-            g.create_dataset(name, data=np.asarray(arr))
-
-        g = grp.create_group("pixels")
-        g.create_dataset("bin1_id", data=bin1.astype(np.int64))
-        g.create_dataset("bin2_id", data=bin2.astype(np.int64))
-        if np.issubdtype(np.asarray(count).dtype, np.integer):
-            g.create_dataset("count", data=count.astype(np.int32))
-        else:
-            g.create_dataset("count", data=count.astype(np.float64))
-
-        g = grp.create_group("indexes")
-        g.create_dataset("chrom_offset", data=chrom_offset)
-        g.create_dataset("bin1_offset", data=bin1_offset)
+        grp.attrs.update(layout.attrs)
+        for key, arr in layout._data.items():
+            if arr.dtype == object:
+                arr = arr.astype(h5py.string_dtype())
+            grp.create_dataset(key, data=arr)
     return path

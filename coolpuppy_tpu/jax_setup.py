@@ -1,52 +1,30 @@
-"""Process-level JAX configuration shared by every entry point.
-
-The pallas pileup kernel costs ~40s of Mosaic compile per shape; the
-persistent compilation cache makes that a once-per-machine cost instead of
-once-per-process (CLI runs are short-lived processes, so without this every
-`coolpup-tpu` invocation pays the full compile)."""
+"""Process-level JAX configuration shared by every entry point: the
+persistent compilation cache. CLI runs are short-lived processes, so
+without it every run compiles its device steps again."""
 
 import os
-import tempfile
+
+# a fixed path inside the checkout: the cache key includes the directory,
+# so a location that moves between runs never hits
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
 _done = False
 
 
 def ensure_jax_cache():
-    """Enable the persistent compilation cache (idempotent, safe pre-init).
-
-    Override the location with COOLPUPPY_TPU_JAX_CACHE; set it empty to
-    disable."""
+    """Enable the persistent compilation cache (idempotent, safe before the
+    backend starts). JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself; only
+    when it is unset does this point the cache at ``DEFAULT_CACHE_DIR``.
+    Returns the directory in use."""
     global _done
-    if _done:
-        return
-    _done = True
-    cache_dir = os.environ.get(
-        "COOLPUPPY_TPU_JAX_CACHE",
-        os.path.join(tempfile.gettempdir(), "coolpuppy-tpu-jaxcache"),
-    )
-    if not cache_dir:
-        return
-    try:
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if not _done:
         import jax
 
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:  # pragma: no cover - older jax or read-only fs
-        pass
-
-
-def honor_platform_env():
-    """Apply JAX_PLATFORMS through the config API.
-
-    Some jax builds with out-of-tree accelerator plugins register the plugin
-    regardless of the env var, so `JAX_PLATFORMS=cpu coolpup-tpu ...` would
-    silently run on (and block waiting for) the accelerator. The CLIs call
-    this before first backend use; a no-op when the env var is unset."""
-    want = os.environ.get("JAX_PLATFORMS")
-    if want:
-        try:
-            import jax
-
-            jax.config.update("jax_platforms", want)
-        except Exception:  # pragma: no cover
-            pass
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+        _done = True
+    return DEFAULT_CACHE_DIR

@@ -252,8 +252,8 @@ def _add_snip(outdict, key, snip, extra_funcs=None):
 
 def _add_snip_batch(outdict, key, snips, extra_funcs=None):
     """Batched `_add_snip`: one stacked nansum per flush instead of a
-    [2, W, W] nansum allocation per snip — the per-snip numpy overhead
-    capped the host extension stream at ~6k snips/s (VERDICT r4 #3).
+    [2, W, W] nansum allocation per snip (per-snip numpy overhead, not
+    the hook, set the pace of the host extension stream).
     Final accumulators are identical (nansum over the stack == chained
     pairwise nansum: NaN contributes 0 either way, +inf poison survives,
     a single-snip group keeps its NaNs via the per-snip fold). Extra

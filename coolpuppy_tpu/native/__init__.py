@@ -1,39 +1,40 @@
-"""Optional C++ acceleration for host-side ingest (COO→tile scatter, pair
-enumeration). Falls back to numpy when the shared library isn't built; build
-with `python -m coolpuppy_tpu.native.build`. Bound via ctypes (no pybind11
-in this environment)."""
+"""C++ acceleration for host-side ingest (COO→tile scatter, pair
+enumeration), bound via ctypes. The library is built from
+``_ingest.cpp`` on first import (``build.ensure_built``, or
+``python -m coolpuppy_tpu.native.build``); without a compiler the callers
+fall back to numpy."""
 
 import ctypes
+import logging
 import os
+import subprocess
 
 import numpy as np
 
-_SO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_ingest.so")
+from .build import OUT as _SO, ensure_built
 
 # Leave one core for the engine's main thread: the OpenMP scatter runs on
-# the staging worker WHILE the main thread generates coordinates and packs
-# dispatches, and using every core oversubscribes the host — a genome A/B
-# on the 2-core bench host measured 716k (2 OMP threads) vs 916k snips/s
-# (1). Explicit OMP_NUM_THREADS wins if the user set one.
+# the staging worker WHILE the main thread generates coordinates, and
+# using every core oversubscribes the host. Explicit OMP_NUM_THREADS wins
+# if the user set one.
 if "OMP_NUM_THREADS" not in os.environ:
     os.environ["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 2) - 1))
 
 tile_scatter = None
 tile_scatter_wtri = None
 enumerate_pairs = None
-quad_sort = None
 
-if os.path.exists(_SO):
+try:
+    _built = ensure_built()
+except (OSError, subprocess.CalledProcessError) as _err:
+    logging.getLogger("coolpuppy_tpu").warning(
+        "native ingest library not built (%s); using numpy", _err
+    )
+    _built = False
+
+if _built:
     try:
         _lib = ctypes.CDLL(_SO)
-        _lib.quad_sort.argtypes = [
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
         _lib.tile_scatter_wtri.argtypes = [
             ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64),
@@ -178,26 +179,7 @@ if os.path.exists(_SO):
                     return out_i[:cnt], out_j[:cnt]
                 cap *= 4
 
-        def quad_sort(q, payload, nbuckets):  # noqa: F811
-            """Stable counting sort of int32 payload by int32 keys in
-            [0, nbuckets). Returns (sorted_payload, counts[nbuckets] int64)
-            — the histogram doubles as the per-quad snip counts."""
-            q = np.ascontiguousarray(q, np.int32)
-            payload = np.ascontiguousarray(payload, np.int32)
-            out = np.empty(len(q), np.int32)
-            counts = np.zeros(int(nbuckets), np.int64)
-            _lib.quad_sort(
-                q.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                payload.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                ctypes.c_int64(len(q)),
-                ctypes.c_int64(int(nbuckets)),
-                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            )
-            return out, counts
-
     except Exception:  # pragma: no cover
         tile_scatter = None
         tile_scatter_wtri = None
         enumerate_pairs = None
-        quad_sort = None

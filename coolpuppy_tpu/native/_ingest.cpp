@@ -321,62 +321,6 @@ void tile_scatter_wtri(const int64_t* rows, const int64_t* cols,
 // pairs written, or -1 if capacity was exceeded. k-th superdiagonal sweep
 // with early exit once min distance at k exceeds maxdist (same enumeration
 // order as coords.py::_batches_cis_bed).
-// Stable parallel counting sort of a 32-bit payload by small-ranged keys
-// (tile-quad ids). Replaces numpy argsort+gather in the pallas dispatch hot
-// path (reference hot loop coolpup.py:1104–1191 has no analog: it never
-// sorts, it streams). counts[nbuckets] receives the per-key histogram —
-// exactly the per-quad snip counts the packer needs, so the caller skips
-// np.unique entirely. Threads each own a contiguous input range; stability
-// follows from offsetting each thread's scatter cursor by the histograms of
-// lower-ranked threads.
-void quad_sort(const int32_t* q, const int32_t* payload, int64_t n,
-               int64_t nbuckets, int32_t* out_payload, int64_t* counts) {
-#ifdef _OPENMP
-  int nt = omp_get_max_threads();
-  if (nt > 16) nt = 16;
-  if (n < (int64_t)1 << 16) nt = 1;
-  // cap the transient per-thread histogram at ~64 MB: with nbuckets up to
-  // 2^23 a 16-thread histogram would be a ~1 GB allocation
-  while (nt > 1 && (size_t)nt * nbuckets * sizeof(int64_t) > (64u << 20))
-    nt /= 2;
-#else
-  const int nt = 1;
-#endif
-  std::vector<int64_t> hist((size_t)nt * nbuckets, 0);
-#pragma omp parallel num_threads(nt)
-  {
-#ifdef _OPENMP
-    const int t = omp_get_thread_num();
-#else
-    const int t = 0;
-#endif
-    const int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
-    int64_t* h = hist.data() + (size_t)t * nbuckets;
-    for (int64_t i = lo; i < hi; i++) h[q[i]]++;
-#ifdef _OPENMP
-#pragma omp barrier
-#pragma omp single
-#endif
-    {
-      // column-major prefix over (bucket, thread): cursor for thread t at
-      // bucket b = sum of all buckets < b plus hist of threads < t at b
-      int64_t run = 0;
-      for (int64_t b = 0; b < nbuckets; b++) {
-        int64_t total = 0;
-        for (int tt = 0; tt < nt; tt++) {
-          int64_t c = hist[(size_t)tt * nbuckets + b];
-          hist[(size_t)tt * nbuckets + b] = run + total;
-          total += c;
-        }
-        counts[b] = total;
-        run += total;
-      }
-    }
-    int64_t* cur = hist.data() + (size_t)t * nbuckets;
-    for (int64_t i = lo; i < hi; i++) out_payload[cur[q[i]]++] = payload[i];
-  }
-}
-
 int64_t enumerate_pairs(const double* centers, int64_t n, double mindist,
                         double maxdist, int64_t* out_i, int64_t* out_j,
                         int64_t cap) {

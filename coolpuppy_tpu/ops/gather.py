@@ -1,7 +1,7 @@
 """Fused device pile-up step: batched window gather + normalize + flip +
 grouped accumulation, in one jitted XLA program.
 
-This is the TPU-native replacement of the reference's per-snip Python hot loop
+This is the device replacement of the reference's per-snip Python hot loop
 (reference coolpup.py:1104–1191 — CSR slice, NaN bad rows/cols, LazyToeplitz
 diag masking, OOE division, stripe extraction) and of its per-group nansum
 accumulation (reference lib/puputils.py:12–41). NaN semantics become explicit
@@ -23,8 +23,8 @@ Expected windows are an in-kernel toeplitz gather ``evec[|dd0 + i − j|]``
 (replaces cooltools LazyToeplitz / ExpectedSnipper.select, reference
 coolpup.py:907–917, 1100–1149); a length-1 ``evec`` gives the trans scalar
 expected (coolpup.py:1126–1128). Snips are processed in fixed-size blocks via
-``lax.scan`` so HBM working-set stays bounded; grouped reduction is a one-hot
-matmul on the MXU (or scatter-add for many groups, e.g. by-window pileups).
+``lax.scan`` so the device working set stays bounded; grouped reduction is a
+one-hot matmul (or scatter-add for many groups, e.g. by-window pileups).
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def _segment_add(acc, cid, planes, cfg):
         cid[None, :] == jnp.arange(cfg.capacity, dtype=cid.dtype)[:, None]
     ).astype(jnp.float32)
     flat = planes.reshape(planes.shape[0], -1)
-    # HIGHEST: the MXU's default f32 path loses ~1e-3 relative accuracy
-    # (bf16 passes), visible against the pallas kernel's exact f32 adds
+    # HIGHEST: full f32 products; a reduced-precision default (bf16 or
+    # TF32 passes) would lose ~1e-3 relative against exact f32 adds
     return acc + jnp.dot(
         onehot,
         flat,
@@ -232,78 +232,6 @@ def make_pileup_step_fn(cfg: GatherConfig):
         return out
 
     return step
-
-
-@lru_cache(maxsize=32)
-def make_cov_step(W: int, C: int, S: int):
-    """Jitted coverage accumulation side-step: cov_start/cov_end [C, W] from
-    per-snip coverage-vector slices, grouped by cid via scatter-add (works
-    for any group count). Runs beside the pallas sum/num kernel — coverage
-    vectors never touch the window kernel (reference coolpup.py:1152–1153)."""
-
-    @jax.jit
-    def step(cov1, cov2, r1, r2, cid, snipmask):
-        c1 = _slice_vec(cov1, r1, W) * snipmask[:, None]
-        c2 = _slice_vec(cov2, r2, W) * snipmask[:, None]
-        c1 = jnp.where(jnp.isfinite(c1), c1, 0.0)
-        c2 = jnp.where(jnp.isfinite(c2), c2, 0.0)
-        zeros = jnp.zeros((C, W), jnp.float32)
-        return zeros.at[cid].add(c1), zeros.at[cid].add(c2)
-
-    return step
-
-
-def coverage_histogram_sums(cid, r1, r2, cov1, cov2, W, G):
-    """cov_start / cov_end [G, W] accumulated EXACTLY from per-(group,
-    start-bin) histograms: the per-group sum of coverage-vector slices is
-    Σ_r h[g, r]·cov[r : r + W] — a sliding-window correlation evaluated as
-    one [G, n] @ [n, W] matmul, with h built by one bincount over the snip
-    stream. Zero per-snip device work (the histogram twin of
-    expected_toeplitz_sums); replaces the per-snip coverage slices of the
-    reference hot loop (reference coolpup.py:1152–1153). Nonfinite coverage
-    values contribute 0, exactly like the device kernel's cleanup.
-
-    Memory is O(G·n); callers should fall back to the device scatter-add
-    when G is huge (by-window pileups)."""
-    cid = np.asarray(cid, np.int64)
-
-    def one(cov, starts):
-        cov = np.asarray(cov, np.float64)
-        cov = np.where(np.isfinite(cov), cov, 0.0)
-        n = len(cov)
-        h = np.bincount(
-            cid * n + np.asarray(starts, np.int64), minlength=G * n
-        ).reshape(G, n).astype(np.float64)
-        win = np.lib.stride_tricks.sliding_window_view(
-            np.concatenate([cov, np.zeros(W - 1)]), W
-        )  # [n, W]
-        return h @ win
-
-    return one(cov1, r1), one(cov2, r2)
-
-
-def expected_toeplitz_sums(cid, dd0, evec, W, G):
-    """exp_sum / exp_num [G, W, W]: the expected-emission accumulators
-    (ooe=False mode) computed EXACTLY from the (group, dd0) histogram — each
-    snip's expected window is the toeplitz E(|dd0 + i − j|), so the per-group
-    sum is Σ_d h[g,d]·E(|d + i − j|): one small matmul instead of per-snip
-    device work. Unmasked, like the reference's exp channel
-    (coolpup.py:1130–1138); toeplitz planes are invariant under the flip
-    anti-transpose, so flipped snips need no special casing."""
-    evec = np.atleast_1d(np.asarray(evec, dtype=np.float64))
-    uniq, inv = np.unique(np.asarray(dd0), return_inverse=True)
-    hist = np.zeros((G, len(uniq)))
-    np.add.at(hist, (np.asarray(cid), inv), 1.0)
-
-    offsets = np.arange(-(W - 1), W)  # k = i - j
-    idx = np.abs(uniq[None, :] + offsets[:, None])  # [2W-1, D]
-    ek = evec[np.minimum(idx, len(evec) - 1)]  # clip like the device kernel
-    finite = np.isfinite(ek)
-    m_sum = hist @ np.where(finite, ek, 0.0).T  # [G, 2W-1]
-    m_num = hist @ finite.T.astype(np.float64)
-
-    kmap = (np.arange(W)[:, None] - np.arange(W)[None, :]) + (W - 1)
-    return m_sum[:, kmap], m_num[:, kmap]
 
 
 def merge_flip_banks(out, half):

@@ -1,4 +1,4 @@
-"""Rescaled (variable-size) snippet path — resampling as MXU matmuls.
+"""Rescaled (variable-size) snippet path — resampling as matmuls.
 
 The reference's hardest kernel: variable (h, w) windows resized to a fixed
 R×R with NaN propagation (reference coolpup.py:1193–1234 + cooltools
@@ -9,7 +9,7 @@ traced h and w:
     out = L(h) @ win @ R(w)^T,   L ∈ [R, Hmax],  L[i, k] = |out-cell i ∩ in-cell k| · R/h
 
 Rows of L sum to 1, so this is an exact area-weighted average resize — two
-small matmuls per snip, batched onto the MXU. (Deviation from the reference:
+small matmuls per snip, batched. (Deviation from the reference:
 cooltools zoom_array uses an order-3 spline zoom + block-mean; area averaging
 has the same mean-preserving semantics without spline ringing. Documented in
 DESIGN.md.)
@@ -70,9 +70,10 @@ def resize_matrix(h, R, Hmax, dtype=jnp.float32):
 def resize2d(win, h, w, R, Hmax):
     """Area-resize one [Hmax, Hmax] padded window with logical size (h, w).
 
-    HIGHEST precision: the MXU's default f32 path (bf16 passes) costs ~6e-4
-    relative error vs the host/CPU operator — visible in TPU-vs-CPU parity
-    of rescaled pileups; full-f32 matmuls keep the deviation ~1e-6."""
+    HIGHEST precision: full f32 products (FP32, not TF32, on a GPU). A
+    reduced-precision default (bf16 or TF32 passes) costs ~1e-4..1e-3
+    relative error against the host/CPU operator; full f32 keeps the
+    deviation ~1e-6."""
     L = resize_matrix(h, R, Hmax)
     Rm = resize_matrix(w, R, Hmax)
     tmp = jnp.dot(

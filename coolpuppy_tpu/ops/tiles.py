@@ -47,8 +47,7 @@ class SymTileStack:
     materializes the full stack as ``full[k] = upper[src[k]]`` (transposed
     where ``flip[k]``, symmetrized where ``diag[k]`` and the scatter held
     only the stored upper half). Halves both the host scatter work and the
-    host->device tile payload — the two dominant costs of fresh-region
-    staging through a slow link (VERDICT r3 #1/#3)."""
+    host->device tile payload."""
 
     upper: np.ndarray  # [Ku+1, B, B] float32; slot 0 all zeros
     tile_map: np.ndarray  # [nr+1, nc+1] -> FULL stack index (0 = empty)
@@ -75,44 +74,6 @@ class SymTileStack:
             full = np.where(self.diag[:, None, None], sym, full)
         return full.astype(np.float32)
 
-    def to_tile_stack(self):
-        return TileStack(
-            tiles=self.expand_host(), tile_map=self.tile_map, B=self.B,
-            shape=self.shape,
-        )
-
-
-def f16_wire_plan(tiles, mode):
-    """Scan-only half of cast_tiles_f16: pick the pow2 scale (or refuse).
-    Returns ``(scale, inv)`` or None. The scan (nanmax) is ~30 ms per GB;
-    the expensive multiply+f16 cast can then run per upload slab so it
-    overlaps the async transfers instead of serializing in front of them
-    (the whole-stack cast ate the f16 wire win on the round-5 first
-    measurement)."""
-    if not mode or tiles.size == 0:
-        return None
-    with np.errstate(invalid="ignore"):
-        amax = float(np.nanmax(np.abs(tiles)))
-    if np.isinf(amax):
-        return None
-    if not np.isfinite(amax) or amax == 0.0:  # all-zero / all-NaN
-        return np.float32(1.0), np.float32(1.0)
-    scale = np.float32(2.0 ** (13 - int(np.ceil(np.log2(amax) + 1e-12))))
-    return scale, np.float32(1.0 / scale)
-
-
-def cast_slab_f16(arr, scale, mode):
-    """Cast one slab with a pre-planned scale (f16_wire_plan). For
-    ``mode == "exact"`` verifies the round-trip and returns None on any
-    mismatch (caller falls back to f32 for the whole payload)."""
-    wire = (arr * scale).astype(np.float16)
-    if mode == "exact":
-        rt = wire.astype(np.float32) * np.float32(1.0 / float(scale))
-        if not np.array_equal(rt, arr, equal_nan=True):
-            return None
-    return wire
-
-
 def cast_tiles_f16(tiles, mode):
     """Host->device WIRE compression for a raw tile payload: cast to f16
     with a power-of-2 scale placing the max |value| near 2^13 (pow2
@@ -130,43 +91,27 @@ def cast_tiles_f16(tiles, mode):
         on modes whose values are O(1)).
 
     Returns ``(wire_f16, inv_scale_f32)`` or None (use f32). The device
-    side multiplies by ``inv_scale`` after upconverting. Halves the
-    dominant fresh-region payload through a slow host<->device link
-    (the tile upload the reference never ships — it slices its CSR
-    locally, reference coolpup.py:1053–1057)."""
+    side multiplies by ``inv_scale`` after upconverting: half the bytes of
+    the f32 tile upload (the reference never ships tiles — it slices its
+    CSR locally, reference coolpup.py:1053–1057)."""
     if not mode:
         return None
     if tiles.size == 0:
         return tiles.astype(np.float16), np.float32(1.0)
-    plan = f16_wire_plan(tiles, mode)
-    if plan is None:
+    with np.errstate(invalid="ignore"):
+        amax = float(np.nanmax(np.abs(tiles)))
+    if np.isinf(amax):
         return None
-    scale, inv = plan
-    wire = cast_slab_f16(tiles, scale, mode)
-    if wire is None:
-        return None
+    if not np.isfinite(amax) or amax == 0.0:  # all-zero / all-NaN
+        return tiles.astype(np.float16), np.float32(1.0)
+    scale = np.float32(2.0 ** (13 - int(np.ceil(np.log2(amax) + 1e-12))))
+    wire = (tiles * scale).astype(np.float16)
+    inv = np.float32(1.0 / scale)
+    if mode == "exact":
+        rt = wire.astype(np.float32) * inv
+        if not np.array_equal(rt, tiles, equal_nan=True):
+            return None
     return wire, inv
-
-
-def cast_tiles_int8(tiles):
-    """int8 wire for RAW integer count tiles (weights NOT folded): exact
-    whenever every value is an integer <= 127 — true for most Hi-C maps
-    away from very coarse bins. ONE QUARTER of the f32 payload and half
-    of f16; the device folds the balancing weights during normalization
-    (fold_weights). Returns the int8 array or None (fall back to f16/f32
-    wire)."""
-    if tiles.size == 0:
-        return tiles.astype(np.int8)
-    amax = float(tiles.max())
-    amin = float(tiles.min())
-    if not (np.isfinite(amax) and np.isfinite(amin)):
-        return None
-    if amin < -127 or amax > 127:
-        return None
-    wire = tiles.astype(np.int8)
-    if not np.array_equal(wire.astype(np.float32), tiles):
-        return None
-    return wire
 
 
 @lru_cache(maxsize=8)
@@ -194,8 +139,7 @@ def expand_sym_device(sym: SymTileStack, k_pad=None, f16_mode=False):
     """Upload the upper tiles and materialize the FULL raw stack on device
     (one [K_pad, B, B] device array; K_pad pow2 so downstream kernel
     signatures stay pinned). ``f16_mode`` ships the tiles as scaled f16
-    when safe (see cast_tiles_f16); ``"int8"`` ships raw integer counts
-    as int8 (engine-proven exact; quarter of f32)."""
+    when safe (see cast_tiles_f16)."""
     import jax
 
     from .gather import pad_pow2
@@ -203,15 +147,7 @@ def expand_sym_device(sym: SymTileStack, k_pad=None, f16_mode=False):
     K1 = len(sym.src)
     if k_pad is None:
         k_pad = max(64, 1 << int(np.ceil(np.log2(max(1, K1)))))
-    cast = None
-    if f16_mode == "int8":
-        wire = cast_tiles_int8(sym.upper)
-        if wire is not None:
-            cast = wire, np.float32(1.0)
-        else:  # engine misjudged: raw ints still ship exact f16
-            cast = cast_tiles_f16(sym.upper, "exact")
-    elif f16_mode:
-        cast = cast_tiles_f16(sym.upper, f16_mode)
+    cast = cast_tiles_f16(sym.upper, f16_mode)
     if cast is not None:
         upper_w, inv = cast
     else:
@@ -327,58 +263,8 @@ def build_tile_stack(coo, B, r1=None, r2=None, window1=None, window2=None):
     return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
 
 
-def build_tile_stack_sym(
-    coo, B, r1=None, r2=None, window1=None, window2=None
-):
-    """Upper-triangle build from a FULL symmetric COO (both triangles
-    stored, e.g. a mirrored fetch): entries landing on lower tiles fall off
-    the upper scatter map, so diagonal tiles keep both halves
-    (``diag_full=True``) and off-diagonal lower tiles come from the device
-    transpose. Scatters/uploads ~half the tiles of build_tile_stack."""
-    n1, n2 = coo.shape
-    assert n1 == n2, "sym build requires a square (cis) region"
-    nr, nc = -(-n1 // B), -(-n2 // B)
-    rows = np.asarray(coo.row)
-    cols = np.asarray(coo.col)
-    vals = np.asarray(coo.data)
-
-    if r1 is not None:
-        want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
-    else:
-        want = np.unique(
-            (rows.astype(np.int64) // B) * nc + cols.astype(np.int64) // B
-        )
-    tile_map, utile_map, src, flip, diag, Ku = _sym_maps(want, nr, nc)
-
-    if Ku == 0 or len(rows) == 0:
-        upper = np.zeros((Ku + 1, B, B), dtype=np.float32)
-        return SymTileStack(
-            upper=upper, tile_map=tile_map, src=src, flip=flip, diag=diag,
-            diag_full=True, B=B, shape=(n1, n2),
-        )
-    if _native_tile_scatter is not None:
-        upper = _native_tile_scatter(rows, cols, vals, utile_map, B, Ku, nc)
-    else:
-        pix_tile = utile_map[rows // B, cols // B].astype(np.int64)
-        keep = pix_tile > 0
-        flat_idx = (
-            pix_tile[keep] * (B * B)
-            + (rows[keep] % B) * B
-            + (cols[keep] % B)
-        )
-        flat = np.bincount(
-            flat_idx, weights=vals[keep], minlength=(Ku + 1) * B * B
-        )
-        upper = flat.reshape(Ku + 1, B, B).astype(np.float32)
-    return SymTileStack(
-        upper=upper, tile_map=tile_map, src=src, flip=flip, diag=diag,
-        diag_full=True, B=B, shape=(n1, n2),
-    )
-
-
 def build_tile_stack_slab_sym(
-    slab, B, r1=None, r2=None, window1=None, window2=None, band=None,
-    want=None,
+    slab, B, r1=None, r2=None, window1=None, window2=None,
 ):
     """Upper-triangle build from a stored-triangle PixelSlab (cis): scatter
     runs with mirror=False onto the upper tile map (half the writes of the
@@ -389,11 +275,7 @@ def build_tile_stack_slab_sym(
         "sym slab build requires a square cis region with a stored triangle"
     )
     nr, nc = -(-n1 // B), -(-n2 // B)
-    if want is not None:
-        want = np.asarray(want, np.int64)
-    elif band is not None:
-        want, nr, nc = band_tiles(band, B, (n1, n2))
-    elif r1 is not None:
+    if r1 is not None:
         want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
     else:
         lr = slab.rows - slab.lo1
@@ -439,150 +321,8 @@ def build_tile_stack_slab_sym(
     )
 
 
-@dataclass
-class CooTileStack:
-    """Sparse WIRE representation of a tile stack: per-pixel (flat index,
-    value) pairs that the device scatter-adds into the dense [K+1, B, B]
-    stack (ops/pallas_gather.PallasPileupSession). Chosen over the dense
-    host scatter when ``nnz * 6 bytes`` undercuts the dense tile payload —
-    trans feature products touch nearly every tile of a mostly-empty
-    rectangle, so their dense stacks shipped ~10-30x more bytes than the
-    region holds pixels (round-4 trans was upload-bound exactly here).
-    Balancing weights are folded on host; values ride f16 under the same
-    pow2-scale safety rules as the dense wire (cast_tiles_f16)."""
-
-    idx: np.ndarray  # [nnz] int64/int32 flat index into raveled [K+1,B,B]
-    vals: np.ndarray  # [nnz] float16 (scaled) or float32 wire values
-    inv_scale: np.float32  # device multiplies after upconvert
-    tile_map: np.ndarray  # [nr+1, nc+1] -> stack index (0 = empty)
-    B: int
-    shape: tuple
-    k1: int  # dense stack depth K+1 (slot 0 = shared zero tile)
-
-    @property
-    def n_tiles(self):
-        return self.k1 - 1
-
-    @property
-    def nnz(self):
-        return len(self.idx)
-
-    def expand_host(self):
-        """Materialize the dense [K+1, B, B] f32 stack on host (tests)."""
-        flat = np.zeros(self.k1 * self.B * self.B, np.float64)
-        np.add.at(
-            flat, self.idx, self.vals.astype(np.float64) * float(self.inv_scale)
-        )
-        out = flat.reshape(self.k1, self.B, self.B).astype(np.float32)
-        out[0] = 0.0
-        return out
-
-    def to_tile_stack(self):
-        return TileStack(
-            tiles=self.expand_host(), tile_map=self.tile_map, B=self.B,
-            shape=self.shape,
-        )
-
-
-def build_tile_stack_coo(slab, B, want, f16_mode=False):
-    """Build the sparse COO wire payload for the tiles in ``want`` from a
-    PixelSlab: O(nnz) host work (tile lookup + weight fold + flat index),
-    NO host scatter and NO dense host stack — the device materializes the
-    stack with one scatter-add (~45M nnz/s measured). The mirrored twin of
-    off-diagonal pixels is emitted when ``slab.mirror`` (cis rectangles).
-
-    Replaces: reference coolpup.py:1053–1057's local balanced COO + scipy
-    CSR, for streams whose window predicate covers a sparse rectangle."""
-    n1, n2 = slab.shape
-    nr, nc = -(-n1 // B), -(-n2 // B)
-    want = np.asarray(want, np.int64)
-    K = len(want)
-    tile_map = np.zeros((nr + 1, nc + 1), dtype=np.int32)
-    tile_map[want // nc, want % nc] = np.arange(1, K + 1, dtype=np.int32)
-
-    rows = slab.rows - slab.lo1
-    cols = slab.cols - slab.lo2
-    # f64 weight fold then ONE f32 cast (matches the numpy dense scatter;
-    # the native C++ scatter folds in f32, so sparse-vs-native differs by
-    # f32 rounding order only, ~1e-7 relative on single-pixel cells)
-    vals = slab.vals.astype(np.float64)
-    if slab.weights is not None:
-        vals = vals * slab.weights[slab.rows] * slab.weights[slab.cols]
-    vals = vals.astype(np.float32)
-    inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
-    rows, cols, vals = rows[inb], cols[inb], vals[inb]
-    if slab.mirror:
-        off = rows != cols
-        rows, cols, vals = (
-            np.concatenate([rows, cols[off]]),
-            np.concatenate([cols, rows[off]]),
-            np.concatenate([vals, vals[off]]),
-        )
-    pix_tile = tile_map[rows // B, cols // B].astype(np.int64)
-    keep = pix_tile > 0
-    rows, cols, vals, pix_tile = (
-        rows[keep], cols[keep], vals[keep], pix_tile[keep],
-    )
-    idx = (pix_tile * (B * B) + (rows % B) * B + (cols % B)).astype(np.int32)
-
-    inv = np.float32(1.0)
-    if f16_mode and len(vals):
-        # same scale selection + exactness rules as the dense tile wire
-        cast = cast_tiles_f16(vals, f16_mode)
-        if cast is not None:
-            vals, inv = cast
-    return CooTileStack(
-        idx=idx, vals=vals, inv_scale=inv, tile_map=tile_map, B=B,
-        shape=(n1, n2), k1=K + 1,
-    )
-
-
-def rect_tiles(lo1, hi1, lo2, hi2, B, shape):
-    """All (tile_row, tile_col) ids covered by the given bin-range
-    rectangles [lo1, hi1) x [lo2, hi2) — the tile predicate for streams
-    whose windows are known as INTERVALS before any coordinate frames
-    exist (bedpe rows, trans feature products with shift margins).
-    Ranges are clipped to the region; returns sorted unique raveled ids."""
-    n1, n2 = shape
-    nr, nc = -(-n1 // B), -(-n2 // B)
-    lo1 = np.clip(np.asarray(lo1, np.int64), 0, n1 - 1)
-    hi1 = np.clip(np.asarray(hi1, np.int64), 1, n1)
-    lo2 = np.clip(np.asarray(lo2, np.int64), 0, n2 - 1)
-    hi2 = np.clip(np.asarray(hi2, np.int64), 1, n2)
-    t1a, t1b = lo1 // B, (hi1 - 1) // B
-    t2a, t2b = lo2 // B, (hi2 - 1) // B
-    sp1 = int((t1b - t1a).max(initial=0)) + 1
-    sp2 = int((t2b - t2a).max(initial=0)) + 1
-    flags = np.zeros(nr * nc, dtype=bool)
-    for di in range(sp1):
-        rr = t1a + di
-        okr = rr <= t1b
-        for dj in range(sp2):
-            cc = t2a + dj
-            ok = okr & (cc <= t2b)
-            flags[rr[ok] * nc + cc[ok]] = True
-    return np.flatnonzero(flags), nr, nc
-
-
-def band_tiles(max_diag_bins, B, shape):
-    """All (tile_row, tile_col) ids within ``max_diag_bins`` of the diagonal —
-    the tile predicate that needs NO window coordinates, enabling the
-    streaming engine path (windows arrive while the stack already sits on
-    device). A tile is included when any of its pixels can satisfy
-    |row - col| <= max_diag_bins."""
-    n1, n2 = shape
-    nr, nc = -(-n1 // B), -(-n2 // B)
-    k = int(max_diag_bins) // B + 1
-    t1 = np.repeat(np.arange(nr, dtype=np.int64), 2 * k + 1)
-    t2 = t1 + np.tile(np.arange(-k, k + 1, dtype=np.int64), nr)
-    keep = (t2 >= 0) & (t2 < nc)
-    pairs = t1[keep] * nc + t2[keep]
-    return np.sort(pairs), nr, nc
-
-
 def build_tile_stack_slab(
-    slab, B, r1=None, r2=None, window1=None, window2=None, band=None,
-    want=None,
+    slab, B, r1=None, r2=None, window1=None, window2=None,
 ):
     """Scatter a stored-triangle PixelSlab (io/cool.py::fetch_slab) into a
     TileStack in ONE fused pass: balancing weights and the symmetric mirror
@@ -590,17 +330,12 @@ def build_tile_stack_slab(
     reference materializes (coolpup.py:1053–1057) never exists on the host.
     Falls back to fetch_coo-equivalent numpy when the native lib is absent.
 
-    Tiles to materialize come from the window list (r1/r2/window sizes), or
-    from a diagonal band predicate (``band`` = max |row-col| in bins) when
-    the windows are not known yet (streaming path)."""
+    Tiles to materialize come from the window list (r1/r2/window sizes),
+    or are every tile the slab's pixels touch."""
     n1, n2 = slab.shape
     nr, nc = -(-n1 // B), -(-n2 // B)
 
-    if want is not None:
-        want = np.asarray(want, np.int64)
-    elif band is not None:
-        want, nr, nc = band_tiles(band, B, (n1, n2))
-    elif r1 is not None:
+    if r1 is not None:
         want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
     else:
         lr = slab.rows - slab.lo1
@@ -726,11 +461,9 @@ def host_pool_buf(name, shape, dtype=np.float32):
 def assemble_windows_batch(stiles, tile_map, B, r1, r2, W, pool=None):
     """Vectorized host twin of assemble_window for fixed-size windows:
     group snips by tile quad, build each 2B×2B superwindow once, and cut
-    all of its windows with direct slice copies (~1.3 us per window; a
-    sliding_window_view fancy gather measured 6x slower and an
-    elementwise [m, W, W] index gather ~30x slower — the per-snip
-    np.block of the old host stream allocated ~0.5 MB per snip and
-    capped the extension path at ~6k snips/s, VERDICT r4 #3).
+    all of its windows with direct slice copies (a sliding_window_view
+    fancy gather and an elementwise [m, W, W] index gather were both
+    slower; a per-snip np.block allocated ~0.5 MB per snip).
 
     ``stiles`` is the single NaN-encoded normalized stack
     (normalize_tile_stack), so the windows carry the reference NaN /
@@ -801,26 +534,23 @@ def normalize_tile_stack(
     ooe=False,
     cis=True,
     ignore_diags=2,
-    frame_shift=0,
 ):
     """Pre-normalize a tile stack on the host into ONE NaN-encoded stack.
 
     For every materialized tile, applies the full per-pixel semantics of the
     reference hot loop (coolpup.py:1104–1156) — bad-bin masking, diagonal
-    masking, OOE division — so the device kernel reduces to pure window cuts
-    and accumulates with ONE kernel shape for all modes:
+    masking, OOE division — so the host snip stream (PileUpper.stream_snips,
+    assemble_window[s_batch]) reduces to pure window cuts:
 
       stiles[k, x, y] = OOE-divided value where the pixel counts (+inf kept
                         at poison pixels, like the reference's sums),
                         NaN where masked out or NaN-valued.
 
-    Consumers derive the old two-stack pair in-register:
-    contribution = where(isnan(s), 0, s); num = isfinite(s) — halving the
-    kernel's DMA/VMEM traffic and the stack HBM footprint (round 5).
+    Consumers derive contribution = where(isnan(s), 0, s) and
+    num = isfinite(s).
 
     The diagonal index of pixel (x, y) in tile (tr, tc) is
-    tr*B + x - (tc*B + y) + frame_shift (frame_shift = region-frame offset
-    difference; 0 for same-region cis).
+    tr*B + x - (tc*B + y).
     Returns ``stiles`` float32 [K+1, B, B]; slot 0 (the shared zero/empty
     tile) is all-NaN (contributes 0, counts 0).
     """
@@ -849,14 +579,14 @@ def normalize_tile_stack(
     cols = tc[:, None] * B + ar[None, :]
     mask = v1[rows][:, :, None] * v2[cols][:, None, :]  # [K1, B, B]
     if cis and ignore_diags > 0:
-        diag = rows[:, :, None] - cols[:, None, :] + frame_shift
+        diag = rows[:, :, None] - cols[:, None, :]
         mask = mask * (np.abs(diag) >= ignore_diags)
 
     if ooe:
         if np.ndim(evec) == 0 or len(np.atleast_1d(evec)) == 1:
             ew = np.full((K1, B, B), float(np.atleast_1d(evec)[0]), np.float32)
         else:
-            diag = np.abs(rows[:, :, None] - cols[:, None, :] + frame_shift)
+            diag = np.abs(rows[:, :, None] - cols[:, None, :])
             epad = np.full(
                 max(int(diag.max()) + 1, len(evec)), np.nan, np.float32
             )
@@ -870,250 +600,3 @@ def normalize_tile_stack(
     stiles = np.where(mask > 0, val, np.nan).astype(np.float32)
     stiles[0] = np.nan
     return stiles
-
-
-@lru_cache(maxsize=None)
-def _make_normalize_slab_fn(B, ooe, cis, ignore_diags, frame_shift,
-                            fold_weights=False):
-    import jax
-    import jax.numpy as jnp
-
-    @jax.jit
-    def f(tiles, tr, tc, v1, v2, epad, inv):
-        # f16/int8 wire payloads upconvert + unscale on entry (inv = pow2
-        # inverse scale from cast_tiles_f16; 1.0 for f32/int payloads)
-        tiles = tiles.astype(jnp.float32) * inv
-        ar = jnp.arange(B, dtype=jnp.int32)
-        rows = tr[:, None] * B + ar[None, :]  # [k, B]
-        cols = tc[:, None] * B + ar[None, :]
-        mask = v1[rows][:, :, None] * v2[cols][:, None, :]
-        if fold_weights:
-            # int8 raw-count wire: v1/v2 carry the CLEANED balancing
-            # weights (0 at bad bins) instead of 0/1 valid flags, so
-            # ``mask`` is both the gate (mask > 0 <=> both bins valid)
-            # and the per-pixel weight product — same multiply order as
-            # the native host scatter (w[r]*w[c] first, then * count)
-            tiles = tiles * mask
-        diag = rows[:, :, None] - cols[:, None, :] + frame_shift
-        if cis and ignore_diags > 0:
-            mask = mask * (jnp.abs(diag) >= ignore_diags)
-        if ooe:
-            # per-tile toeplitz WITHOUT the [k, B, B] elementwise gather
-            # (XLA TPU scalar gathers run ~30M/s — 8.4M of them made this
-            # normalize ~0.3 s per region): gather only the [k, 2B-1]
-            # diagonal window, then build ew[k, i, j] = win[k, B-1+i-j]
-            # from B static reversed slices (exact, gather-free)
-            d0 = (tr - tc) * B + frame_shift  # [k]
-            offs = jnp.arange(2 * B - 1, dtype=jnp.int32) - (B - 1)
-            win = epad[
-                jnp.minimum(
-                    jnp.abs(d0[:, None] + offs[None, :]),
-                    epad.shape[0] - 1,
-                )
-            ]
-            ew = jnp.stack(
-                [win[:, i : i + B][:, ::-1] for i in range(B)], axis=1
-            )
-            val = tiles / ew
-        else:
-            val = tiles
-        # single NaN-encoded stack (see normalize_tile_stack)
-        return jnp.where(mask > 0, val, jnp.nan).astype(jnp.float32)
-
-    return f
-
-
-def normalize_prep_device(tile_map, B, valid1, valid2, evec=None,
-                          ooe=False, frame_shift=0, k_pad=None):
-    """Upload-once preparation for normalize_tiles_from_prep: per-slot
-    (tr, tc) host arrays + device-resident padded per-bin vectors. Callers
-    normalizing SEVERAL stacks over one region (the slab-prefix pipeline)
-    reuse this instead of re-uploading ~6 small arrays per stack (each a
-    ~20 ms link round trip)."""
-    import jax
-
-    if k_pad is None:
-        k_pad = int(tile_map.max()) + 1
-    tr = np.zeros(k_pad, np.int32)
-    tc = np.zeros(k_pad, np.int32)
-    gr, gc = np.nonzero(tile_map)
-    tr[tile_map[gr, gc]] = gr
-    tc[tile_map[gr, gc]] = gc
-    nrp, ncp = tile_map.shape
-    del gr, gc
-    v1 = np.zeros(nrp * B + B, np.float32)
-    m1 = min(len(valid1), len(v1))
-    v1[:m1] = np.asarray(valid1, np.float32)[:m1]
-    v2 = np.zeros(ncp * B + B, np.float32)
-    m2 = min(len(valid2), len(v2))
-    v2[:m2] = np.asarray(valid2, np.float32)[:m2]
-    L = (max(nrp, ncp) + 2) * B + abs(int(frame_shift)) + 1
-    epad = np.full(L, np.nan, np.float32)
-    if ooe and evec is not None:
-        ev = np.atleast_1d(np.asarray(evec, np.float32))
-        if ev.size == 1:
-            epad[:] = ev[0]
-        else:
-            epad[: min(ev.size, L)] = ev[:L]
-    trd, tcd, v1d, v2d, ed = jax.device_put((tr, tc, v1, v2, epad))
-    return trd, tcd, v1d, v2d, ed
-
-
-def normalize_tiles_from_prep(tiles_dev, prep, B, ooe=False, cis=True,
-                              ignore_diags=2, frame_shift=0, slab=1024,
-                              inv=None, fold_weights=False):
-    """normalize_tiles_device over pre-uploaded index/vector arrays
-    (normalize_prep_device with matching ``k_pad``): every argument slices
-    DEVICE arrays, so repeated normalizes over one region (the slab-prefix
-    pipeline) ship no further host->device bytes. ``inv`` is the inverse
-    wire scale when ``tiles_dev`` is a scaled-f16 payload. Returns the
-    single NaN-encoded ``stiles`` stack (see normalize_tile_stack)."""
-    import jax
-    import jax.numpy as jnp
-
-    trd, tcd, v1d, v2d, ed = prep
-    if inv is None:
-        inv = np.float32(1.0)
-    K_pad = int(tiles_dev.shape[0])
-    assert trd.shape[0] == K_pad, (
-        "normalize_prep_device must be built with k_pad == tiles_dev depth"
-    )
-    f = _make_normalize_slab_fn(
-        B, bool(ooe), bool(cis), int(ignore_diags), int(frame_shift),
-        bool(fold_weights),
-    )
-    slab = min(slab, K_pad)
-    parts = []
-    for lo in range(0, K_pad, slab):
-        hi = min(lo + slab, K_pad)
-        parts.append(
-            f(tiles_dev[lo:hi], trd[lo:hi], tcd[lo:hi], v1d, v2d, ed, inv)
-        )
-    stiles = jnp.concatenate(parts) if len(parts) > 1 else parts[0]
-    # slot 0 (shared zero/empty tile): contributes 0, counts 0 -> all-NaN
-    nanb = jnp.full((1, B, B), jnp.nan, jnp.float32)
-    return jax.lax.dynamic_update_slice(stiles, nanb, (0, 0, 0))
-
-
-def normalize_tiles_device(
-    tiles_dev,
-    tile_map,
-    B,
-    valid1,
-    valid2,
-    evec=None,
-    ooe=False,
-    cis=True,
-    ignore_diags=2,
-    frame_shift=0,
-    slab=1024,
-    fold_weights=False,
-):
-    """normalize_tile_stack_device over an ALREADY-device-resident raw
-    stack (e.g. the sym-expanded upper-triangle upload): same per-pixel
-    semantics, no further host->device tile transfer. ``tiles_dev`` is
-    [K_pad, B, B]; padding slots normalize to garbage but are never
-    referenced by ``tile_map``. Slot 0 is re-set to all-NaN. Composes
-    normalize_prep_device + normalize_tiles_from_prep (one definition of
-    the semantics)."""
-    prep = normalize_prep_device(
-        tile_map, B, valid1, valid2, evec=evec, ooe=ooe,
-        frame_shift=frame_shift, k_pad=int(tiles_dev.shape[0]),
-    )
-    return normalize_tiles_from_prep(
-        tiles_dev, prep, B, ooe=ooe, cis=cis,
-        ignore_diags=ignore_diags, frame_shift=frame_shift, slab=slab,
-        fold_weights=fold_weights,
-    )
-
-
-def normalize_tile_stack_device(
-    ts: TileStack,
-    valid1,
-    valid2,
-    evec=None,
-    ooe=False,
-    cis=True,
-    ignore_diags=2,
-    frame_shift=0,
-    slab=1024,
-    f16_mode=False,
-):
-    """Device-side `normalize_tile_stack`: same per-pixel semantics
-    (reference coolpup.py:1104–1156), computed on the accelerator.
-
-    Only the RAW tile stack crosses the host↔device link (half the bytes of
-    shipping both normalized stacks, and the O(K·B²) mask/toeplitz/divide work
-    rides the VPU instead of host numpy); ``f16_mode`` halves it again by
-    shipping scaled f16 when safe (cast_tiles_f16). Slabs of `slab` tiles
-    keep device intermediates bounded for large regions; every slab reuses
-    one compiled shape. Returns the NaN-encoded ``stiles`` device array,
-    [K+1, B, B] float32 (see normalize_tile_stack).
-    """
-    import jax
-    import jax.numpy as jnp
-
-    B = ts.B
-    K1 = ts.tiles.shape[0]
-    tr = np.zeros(K1, np.int32)
-    tc = np.zeros(K1, np.int32)
-    gr, gc = np.nonzero(ts.tile_map)
-    tr[ts.tile_map[gr, gc]] = gr
-    tc[ts.tile_map[gr, gc]] = gc
-
-    nrp, ncp = ts.tile_map.shape
-    # callers may pass valid vectors padded beyond the tiled extent (the
-    # engine pow2-pads them for the kernel); bins past nrp*B+B are unreachable
-    # by any tile row index, so clip
-    v1 = np.zeros(nrp * B + B, np.float32)
-    m1 = min(len(valid1), len(v1))
-    v1[:m1] = np.asarray(valid1, np.float32)[:m1]
-    v2 = np.zeros(ncp * B + B, np.float32)
-    m2 = min(len(valid2), len(v2))
-    v2[:m2] = np.asarray(valid2, np.float32)[:m2]
-    # epad covers every reachable |diag|; NaN beyond the expected vector is
-    # exactly the host/reference behavior (NaN -> masked out of num)
-    L = (max(nrp, ncp) + 2) * B + abs(int(frame_shift)) + 1
-    epad = np.full(L, np.nan, np.float32)
-    if ooe and evec is not None:
-        ev = np.atleast_1d(np.asarray(evec, np.float32))
-        if ev.size == 1:
-            epad[:] = ev[0]
-        else:
-            epad[: min(ev.size, L)] = ev[:L]
-
-    f = _make_normalize_slab_fn(
-        B, bool(ooe), bool(cis), int(ignore_diags), int(frame_shift)
-    )
-    v1d, v2d, ed = jax.device_put((v1, v2, epad))
-
-    cast = cast_tiles_f16(ts.tiles, f16_mode)
-    if cast is not None:
-        tiles_w, inv = cast
-    else:
-        tiles_w, inv = ts.tiles, np.float32(1.0)
-
-    slab = min(slab, K1)
-    kpad = -(-K1 // slab) * slab
-    tilesp = tiles_w
-    trp, tcp = tr, tc
-    if kpad != K1:
-        tilesp = np.concatenate(
-            [tilesp, np.zeros((kpad - K1, B, B), tilesp.dtype)]
-        )
-        trp = np.concatenate([tr, np.zeros(kpad - K1, np.int32)])
-        tcp = np.concatenate([tc, np.zeros(kpad - K1, np.int32)])
-
-    parts = []
-    for lo in range(0, kpad, slab):
-        sl = slice(lo, lo + slab)
-        parts.append(
-            f(jax.device_put(tilesp[sl]), trp[sl], tcp[sl], v1d, v2d, ed,
-              inv)
-        )
-    stiles = (
-        jnp.concatenate(parts)[:K1] if len(parts) > 1 else parts[0][:K1]
-    )
-    # stack slot 0 is the shared zero/empty tile: no data, no counts
-    nanb = jnp.full((1, B, B), jnp.nan, jnp.float32)
-    return jax.lax.dynamic_update_slice(stiles, nanb, (0, 0, 0))

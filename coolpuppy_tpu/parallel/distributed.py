@@ -1,13 +1,13 @@
-"""Multi-host (DCN) scaffolding: jax.distributed init, region-pair work
+"""Multi-host scaffolding: jax.distributed init, region-pair work
 partitioning across processes, and cross-host reduction of region outputs.
 
 The reference's only scale-out axis is a process pool over region pairs on
 one node with a driver-side reduce (reference coolpup.py:1502–1531). Across
-TPU pod hosts the same axis becomes: each host ingests and piles up its
-subset of region pairs (HDF5 reads stay host-local, work rides DCN), then
+hosts the same axis becomes: each host ingests and piles up its subset
+of region pairs (HDF5 reads stay host-local), then
 the per-region outputs are allgathered across processes and reduced by the
 same sum_pups monoid. Within each host, the "loci" mesh axis shards snip
-streams over the local devices (parallel/mesh.py) with psum over ICI.
+streams over the local devices (parallel/mesh.py) with a psum.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ def init_distributed(**kwargs):
     """Initialize the jax distributed runtime for a multi-process run.
 
     With no arguments, jax reads the coordinator/process topology from the
-    environment (automatic on TPU pods). No-op when already initialized or
+    environment where the cluster provides one. No-op when already initialized or
     when running single-process. Returns (process_index, process_count)."""
     import jax
 
@@ -41,7 +41,7 @@ def local_region_pairs(pairs, process_index=None, process_count=None):
 
 def allreduce_region_maps(region_outputs):
     """Exchange per-region pileup outputs across processes so every host
-    holds the full list (the DCN counterpart of the reference's driver-side
+    holds the full list (the cross-host counterpart of the reference's driver-side
     gather before ``reduce(sum_pups, …)``). Single-process: identity.
 
     Outputs are python dicts of numpy accumulators, so they travel as

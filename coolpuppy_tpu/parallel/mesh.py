@@ -6,13 +6,13 @@ become mesh axes:
 
 - ``regions``: a batch of region pairs, each with its own tile stack /
   valid-bin vectors / expected vector — sharded across this axis (the analog
-  of the reference's Pool over chromosomes; across hosts this is the DCN
-  axis).
-- ``loci``: the snip stream of each region batch, sharded across this axis
-  (ICI). Each device runs the fused gather/accumulate step on its local snip
+  of the reference's Pool over chromosomes; across hosts this is the
+  process axis).
+- ``loci``: the snip stream of each region batch, sharded across this
+  axis. Each device runs the fused gather/accumulate step on its local snip
   shard and the fixed-shape (sum, num, n, cov) accumulators are ``psum``-ed
   over BOTH axes — the collective counterpart of the reference's
-  ``reduce(sum_pups, …)``, riding ICI and overlapped with compute by XLA.
+  ``reduce(sum_pups, …)``, overlapped with compute by XLA.
 
 Padding rows (snipmask=False) make shards shape-uniform, so sharding is purely
 mechanical: results are bit-identical to the single-device step up to
@@ -30,28 +30,13 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops.gather import GatherConfig, make_pileup_step_fn
 
-try:  # jax>=0.6 moved shard_map out of experimental
-    from jax import shard_map
-
-    def _shard_map(f, mesh, in_specs, out_specs):
-        # check_vma=False: the scan carry is zero-initialized inside the
-        # mapped function, which the varying-manual-axes checker rejects
-        return shard_map(
-            f,
-            mesh=mesh,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            check_vma=False,
-        )
-
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _esm
-
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return _esm(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_rep=False,
-        )
+def _shard_map(f, mesh, in_specs, out_specs):
+    # check_vma=False: the scan carry is zero-initialized inside the
+    # mapped function, which the varying-manual-axes checker rejects
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False,
+    )
 
 
 def make_mesh(devices=None, regions_axis=None):
@@ -72,11 +57,11 @@ def make_loci_mesh(devices=None):
     production engine's snip-stream sharding axis (PileUpper(mesh=...)):
     every device holds the region's full tile stack (regions are small:
     block-sparse, bounded by touched windows) and gathers/accumulates its
-    shard of the snip stream; accumulators psum over ICI.
+    shard of the snip stream; accumulators are psum-ed.
 
     Defaults to jax.local_devices(), NOT jax.devices(): in a multi-process
     run each host pileups its own region pairs over its own chips and the
-    per-region outputs merge over DCN afterwards (parallel/distributed.py) —
+    per-region outputs merge across processes afterwards (parallel/distributed.py) —
     a global mesh would require all hosts to run the same region, which is
     the opposite decomposition."""
     devices = devices if devices is not None else jax.local_devices()
@@ -91,7 +76,7 @@ def make_engine_sharded_step(cfg: GatherConfig, mesh: Mesh):
     [S_global = cfg.S * n_loci] are sharded, and the fixed-shape accumulators
     are psum-ed over the axis — the collective counterpart of the reference's
     driver-side ``reduce(sum_pups, …)`` (reference coolpup.py:1502–1531),
-    riding ICI and overlapped with gather compute by XLA.
+    overlapped with gather compute by XLA.
 
     Per-snip stripe planes (cfg.stripes) are returned sharded (each device
     computed its shard); out_spec P("loci") reassembles the global [S, W]

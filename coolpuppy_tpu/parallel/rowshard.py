@@ -1,13 +1,13 @@
-"""Row-partitioned tile storage across devices with an ICI halo exchange.
+"""Row-partitioned tile storage across devices with a halo exchange.
 
 The reference holds one whole-chromosome scipy CSR per worker process
 (reference coolpup.py:1053–1077, README.md:30) — memory per worker scales
-with the full region. The TPU-native counterpart named in SURVEY §2c/§5 is
-row-partitioned sparse storage: each device's HBM holds ONLY the block-sparse
+with the full region. The device counterpart named in SURVEY §2c/§5 is
+row-partitioned sparse storage: each device's memory holds ONLY the block-sparse
 tiles whose tile-row falls in its contiguous row band, snips are routed to
 the device owning their start row, and the one boundary tile-row a window can
 straddle (windows span at most 2 tile rows because B >= W) is exchanged
-between neighboring devices with ``jax.lax.ppermute`` over ICI inside the
+between neighboring devices with ``jax.lax.ppermute`` inside the
 sharded step — the halo exchange. Accumulators psum over the "loci" axis,
 exactly like the replicated-tiles path (parallel/mesh.py), but per-device
 matrix memory drops from O(region) to O(region / n_devices + one tile row).
@@ -17,8 +17,8 @@ load; :func:`route_snips` orders the snip stream device-major. Device-side:
 :func:`make_row_sharded_step` wraps the fused pile-up step (ops/gather.py)
 in shard_map with the ppermute halo. The engine routes every non-rescale
 mesh region through this (engine/pileup.py, PileUpper._rowshard_accumulate);
-over a multi-host "loci" axis the same program's halo ppermute and psum ride
-DCN between hosts and ICI within them.
+over a multi-host "loci" axis the same program's halo ppermute and psum
+cross hosts as well.
 """
 
 from __future__ import annotations
@@ -211,7 +211,7 @@ def make_row_sharded_step(cfg: GatherConfig, mesh):
     n = int(mesh.shape["loci"])
     # device 0's first tile-row has no -1 neighbor to receive it (halo[n-1]
     # is empty by construction), so the wrap-around (0, n-1) pair would only
-    # burn ICI bandwidth; unaddressed ppermute receivers get zeros, which the
+    # burn interconnect bandwidth; unaddressed ppermute receivers get zeros, which the
     # tile_map never references
     perm = [(i, i - 1) for i in range(1, n)]
     acc_keys = (

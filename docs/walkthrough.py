@@ -5,7 +5,7 @@ notebook that CI runs as an integration smoke test (reference
 Generates a synthetic cooler + stranded features, then drives every user
 surface end-to-end: coolpup CLI (plain, by-strand, by-distance, stripes,
 local rescale), dividepups CLI, plotpup CLI, and the Python API with an
-extension hook. Runs on CPU or TPU unchanged. Exit code 0 = all good.
+extension hook. Runs on CPU or GPU unchanged. Exit code 0 = all good.
 """
 
 import os
@@ -14,14 +14,6 @@ import tempfile
 
 import numpy as np
 import pandas as pd
-
-if "cpu" in os.environ.get("JAX_PLATFORMS", "").lower():
-    # some jax builds with out-of-tree TPU plugins ignore the env var;
-    # force the requested platform through the config API
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 
 def main():
     from coolpuppy_tpu import Cooler, pileup

@@ -2,7 +2,7 @@
 reference's TAD_score notebook pattern (SURVEY §3.3; reference
 docs/source/Examples, CoordCreator/PileUpper with rescale and per-snip
 extension hooks). CI executes this script end-to-end on CPU
-(tests/test_walkthroughs.py); it runs unchanged on TPU.
+(tests/test_walkthroughs.py); it runs unchanged on a GPU.
 
 Covers the advanced API surface the first walkthrough doesn't:
 
@@ -158,12 +158,12 @@ def main():
             assert sizes.max() < 15
     print(f"   groups: {sorted(by_class.index)}")
 
-    # -- the vectorized per-snip-data hook (round 5) ---------------------
+    # -- the vectorized per-snip-data hook --------------------------------
     print("== 4. postprocess_batch_func: per-snip data at batch speed")
     # fixed-size windows around TAD boundaries; the batch hook sees each
     # chunk's [N, W, W] float32 window stack aligned with the frame and
-    # computes the center score as ONE vectorized line (~50-100x the
-    # per-snip dict stream's throughput; see BENCH_REPORT)
+    # computes the center score as ONE vectorized line, far faster than
+    # the per-snip dict stream
     bounds = pd.DataFrame(
         {
             "chrom": "chr1",

@@ -5,7 +5,7 @@ exec(open("coolpuppy_tpu/_version.py").read())
 setup(
     name="coolpuppy-tpu",
     version=__version__,  # noqa: F821
-    description="TPU-native sparse pile-up (APA) engine for Hi-C data",
+    description="Accelerator-native sparse pile-up (APA) engine for Hi-C data",
     packages=find_packages(
         include=[
             "coolpuppy_tpu",

@@ -8,6 +8,7 @@ import numpy as np
 import pandas as pd
 
 from coolpuppy_tpu.io import write_cool, Cooler
+from coolpuppy_tpu.io.coolwrite import cool_layout
 
 MM9_TOY_CHROMSIZES = {"chr1": 197_195_432, "chr2": 181_748_087}
 
@@ -21,7 +22,8 @@ def make_toy_cooler(
     trans=True,
 ):
     """Random decaying-by-distance contact map. Returns (Cooler, dense dict,
-    weights) where dense maps (chrom1, chrom2) -> full raw matrix block."""
+    weights) where dense maps (chrom1, chrom2) -> full raw matrix block.
+    ``path=None`` keeps the cooler in memory instead of a .cool file."""
     chromsizes = chromsizes or MM9_TOY_CHROMSIZES
     rng = np.random.default_rng(seed)
     chroms = list(chromsizes.keys())
@@ -65,14 +67,12 @@ def make_toy_cooler(
                 pix2.append(j + offsets[c2])
                 cnt.append(vals)
 
-    write_cool(
-        path,
-        chromsizes,
-        binsize,
-        (np.concatenate(pix1), np.concatenate(pix2), np.concatenate(cnt)),
-        weights=weights,
-    )
-    return Cooler(path), dense, weights
+    pixels = (np.concatenate(pix1), np.concatenate(pix2), np.concatenate(cnt))
+    if path is None:
+        src = cool_layout(chromsizes, binsize, pixels, weights=weights)
+    else:
+        src = write_cool(path, chromsizes, binsize, pixels, weights=weights)
+    return Cooler(src), dense, weights
 
 
 def toy_features():

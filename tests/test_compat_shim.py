@@ -1,7 +1,7 @@
 """The reference-import compatibility shim: the exact import lines from
 the reference's example notebooks (reference
 docs/source/Examples/Walkthrough_API.ipynb, TAD_score.ipynb) must work
-and reach the TPU engine."""
+and reach the accelerator engine."""
 
 import numpy as np
 

@@ -1,6 +1,7 @@
 """expected.py and coverage.py against brute-force dense computations."""
 
 import numpy as np
+import pytest
 
 from coolpuppy_tpu.coverage import coverage
 from coolpuppy_tpu.expected import expected_cis, expected_trans
@@ -63,25 +64,51 @@ def test_coverage_matches_dense(tmp_path):
     np.testing.assert_allclose(tot[:n1], want_tot_chr1)
 
 
-def test_coverage_histogram_equals_scatter_step():
-    """coverage_histogram_sums (host bincount + sliding-window matmul) ==
-    make_cov_step (device scatter-add) on random snips, incl. nonfinite
-    coverage entries (reference per-snip coverage slices,
-    coolpup.py:1152-1153)."""
-    from coolpuppy_tpu.ops.gather import coverage_histogram_sums, make_cov_step
+@pytest.mark.parametrize("large_g", [False, True])
+def test_step_coverage_matches_slices(large_g):
+    """cov_start / cov_end of the fused step == per-group sums of each
+    snip's coverage slices, nonfinite entries counted as 0 (reference
+    per-snip coverage slices, coolpup.py:1152-1153), for both group
+    reductions (one-hot matmul and scatter-add)."""
+    from scipy import sparse
+
+    from coolpuppy_tpu.ops.gather import (
+        GatherConfig,
+        make_pileup_step,
+        pad_pow2,
+    )
+    from coolpuppy_tpu.ops.tiles import build_tile_stack
 
     rng = np.random.default_rng(3)
-    W, G, S, n = 11, 6, 500, 256
+    W, G, S, n, B = 11, 6, 512, 256, 64
     r1 = rng.integers(0, n - W, S).astype(np.int32)
     r2 = rng.integers(0, n - W, S).astype(np.int32)
     cid = rng.integers(0, G, S).astype(np.int32)
-    cov1 = rng.random(n).astype(np.float32)
-    cov2 = rng.random(n).astype(np.float32)
+    cov1 = rng.random(n + B).astype(np.float32)
+    cov2 = rng.random(n + B).astype(np.float32)
     cov1[rng.integers(0, n, 10)] = np.nan
     cov2[rng.integers(0, n, 10)] = np.inf
-
-    cs, ce = coverage_histogram_sums(cid, r1, r2, cov1, cov2, W, G)
-    step = make_cov_step(W, G, S)
-    want_s, want_e = step(cov1, cov2, r1, r2, cid, np.ones(S, np.float32))
-    np.testing.assert_allclose(cs, np.asarray(want_s), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(ce, np.asarray(want_e), rtol=1e-5, atol=1e-5)
+    mat = sparse.coo_matrix(
+        (np.ones(50), (rng.integers(0, n, 50), rng.integers(0, n, 50))),
+        shape=(n, n),
+    )
+    ts = build_tile_stack(mat, B, r1=r1, r2=r2, window1=W, window2=W)
+    cfg = GatherConfig(
+        W=W, B=B, S=S, block=128, capacity=8, cis=True, ignore_diags=2,
+        ooe=False, emit_expected=False, coverage=True, stripes=False,
+        large_g=large_g,
+    )
+    valid = np.ones(n + B, np.float32)
+    out = make_pileup_step(cfg)(
+        ts.tiles, pad_pow2(ts.tile_map.ravel()),
+        np.int32(ts.tile_map.shape[1]), np.ones(1, np.float32), valid,
+        valid, cov1, cov2, r1, r2, r1 - r2, cid, np.ones(S, bool),
+    )
+    for key, cov, starts in (("cov_start", cov1, r1), ("cov_end", cov2, r2)):
+        clean = np.where(np.isfinite(cov), cov, 0.0).astype(np.float64)
+        want = np.zeros((8, W))
+        for s, g in zip(starts, cid):
+            want[g] += clean[s : s + W]
+        np.testing.assert_allclose(
+            np.asarray(out[key]), want, rtol=1e-5, atol=1e-5, err_msg=key
+        )

@@ -137,7 +137,7 @@ def test_snip_hook_multiplies_groups(toy):
 def test_accumulate_values_frame_column_device_path(toy):
     """accumulate_values over a FRAME column must stay on the device kernel
     (no host snip stream) and reproduce the host path's lists exactly
-    (VERDICT r3 #4; reference puputils.py:244–253)."""
+    (reference puputils.py:244–253)."""
     clr, dense, weights = toy
     rng = np.random.default_rng(5)
     feats = pd.DataFrame(

@@ -1,13 +1,14 @@
 """Seeded fuzz parity: randomized flag combinations + randomized features
-through BOTH engine backends (pallas-interpret vs XLA) must agree on every
-output row. Complements the hand-picked combo matrix with configuration
+through BOTH engine routes (the fused device step vs the host snip
+stream, which cuts every window on the host) must agree on every output
+row. Complements the hand-picked combo matrix with configuration
 diversity; seeds are fixed so failures reproduce."""
 
 import numpy as np
 import pandas as pd
 import pytest
 
-from coolpuppy_tpu import pileup
+from coolpuppy_tpu import PileUpper, pileup
 from coolpuppy_tpu.expected import expected_cis
 
 from fixtures import make_toy_cooler, toy_regions
@@ -71,18 +72,28 @@ def random_case(rng, exp):
     return feats, kw
 
 
+def _host_stream(monkeypatch):
+    """Route every pileup() region through the host snip stream: an
+    identity per-snip hook is what sends a region there."""
+    run = PileUpper.pileupsWithControl
+
+    def with_hook(self, *args, **kw):
+        kw["postprocess_snip_func"] = lambda snip: snip
+        return run(self, *args, **kw)
+
+    monkeypatch.setattr(PileUpper, "pileupsWithControl", with_hook)
+
+
 @pytest.mark.parametrize("case", range(N_CASES))
-def test_fuzz_backend_parity(toy, exp, case):
+def test_fuzz_backend_parity(toy, exp, case, monkeypatch):
     clr, dense, weights = toy
     rng = np.random.default_rng(1000 + case)
     feats, kw = random_case(rng, exp)
 
-    outs = {}
-    for backend in ("pallas-interpret", "xla"):
-        outs[backend] = pileup(
-            clr, feats, view_df=toy_regions(), backend=backend, **kw
-        )
-    a, b = outs["pallas-interpret"], outs["xla"]
+    a = pileup(clr, feats, view_df=toy_regions(), **kw)
+    with monkeypatch.context() as m:
+        _host_stream(m)
+        b = pileup(clr, feats, view_df=toy_regions(), **kw)
     assert len(a) == len(b), kw
     key = "group"
     a = a.set_index(a[key].astype(str)).sort_index()

@@ -1,4 +1,4 @@
-"""Frozen golden outputs for EVERY engine mode (VERDICT r3 #5).
+"""Frozen golden outputs for EVERY engine mode.
 
 Each test runs a fixed-seed workload through `pileup()` and compares
 against a committed `tests/golden/*.npz` exactly (atol=1e-10): the repo's
@@ -16,47 +16,19 @@ change; a regenerated golden must be reviewed like a code change.
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
 
-from coolpuppy_tpu import pileup
+from fixtures import make_toy_cooler
 
-from fixtures import make_toy_cooler, toy_expected, toy_regions
+import golden_cases as gc
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+GOLDEN = gc.GOLDEN
 
 
 @pytest.fixture(scope="module")
 def toy(tmp_path_factory):
     path = tmp_path_factory.mktemp("cool") / "golden_toy.cool"
     return make_toy_cooler(str(path), seed=321)
-
-
-def many_features(n_per_chrom=25, seed=11):
-    """A fixed, denser feature set than toy_features so every mode
-    accumulates enough snips for the comparison to be meaningful."""
-    rng = np.random.default_rng(seed)
-    frames = []
-    for chrom in ("chr1", "chr2"):
-        starts = np.sort(
-            rng.choice(
-                np.arange(101, 148, dtype=np.int64), n_per_chrom,
-                replace=False,
-            )
-        ) * 1_000_000
-        frames.append(
-            pd.DataFrame(
-                {
-                    "chrom": chrom,
-                    "start": starts,
-                    "end": starts + 500_000,
-                    "name": "g",
-                    "score": 0,
-                    "strand": rng.choice(["+", "-"], n_per_chrom),
-                }
-            )
-        )
-    return pd.concat(frames, ignore_index=True)
 
 
 def _check_or_freeze(name, got):
@@ -67,206 +39,51 @@ def _check_or_freeze(name, got):
         os.makedirs(GOLDEN, exist_ok=True)
         np.savez_compressed(path, **got)
         pytest.skip(f"golden {name} regenerated")
-    want = np.load(path, allow_pickle=False)
-    assert sorted(want.files) == sorted(got.keys()), (
-        f"golden {name}: key set changed"
-    )
-    for k in want.files:
-        w = want[k]
-        g = np.asarray(got[k])
-        if w.dtype.kind in "US":
-            np.testing.assert_array_equal(g.astype(w.dtype.kind + "64"),
-                                          w.astype(w.dtype.kind + "64"),
-                                          err_msg=f"{name}/{k}")
-        else:
-            np.testing.assert_allclose(
-                g, w, rtol=0, atol=1e-10, equal_nan=True,
-                err_msg=f"{name}/{k}",
-            )
+    gc.compare(name, got, rtol=0, atol=1e-10)
 
 
-def _all_row(pup):
-    return pup[pup["group"] == "all"].iloc[0]
+def _run(name, toy):
+    _, build = gc.CASES[name]
+    _check_or_freeze(name, build(*toy))
 
 
 def test_golden_ooe(toy):
-    clr, dense, weights = toy
-    exp = toy_expected(clr, dense, toy_regions(), weights=weights)
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), expected_df=exp, ooe=True,
-        mindist=0, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_ooe",
-        {"data": row["data"], "num": row["num"], "n": int(row["n"])},
-    )
+    _run("mode_ooe", toy)
 
 
 def test_golden_expected_emission(toy):
-    clr, dense, weights = toy
-    exp = toy_expected(clr, dense, toy_regions(), weights=weights)
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), expected_df=exp, ooe=False,
-        mindist=0, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_expected_emission",
-        {
-            "data": row["data"],
-            "num": row["num"],
-            "n": int(row["n"]),
-            "control_num": row["control_num"],
-        },
-    )
+    _run("mode_expected_emission", toy)
 
 
 def test_golden_coverage_norm(toy):
-    clr, dense, weights = toy
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), clr_weight_name=None, coverage_norm=True,
-        mindist=0, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_coverage_norm",
-        {"data": row["data"], "num": row["num"], "n": int(row["n"])},
-    )
+    _run("mode_coverage_norm", toy)
 
 
 def test_golden_local(toy):
-    clr, dense, weights = toy
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), local=True, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_local", {"data": row["data"], "n": int(row["n"])}
-    )
+    _run("mode_local", toy)
 
 
 def test_golden_rescale(toy):
-    clr, dense, weights = toy
-    feats = many_features()
-    feats = feats.assign(end=feats["start"] + 4_000_000)
-    pup = pileup(
-        clr, feats, features_format="bed",
-        view_df=toy_regions(), local=True, rescale=True,
-        rescale_flank=1, rescale_size=33, mindist=0,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_rescale", {"data": row["data"], "n": int(row["n"])}
-    )
+    _run("mode_rescale", toy)
 
 
 def test_golden_stripes(toy):
-    clr, dense, weights = toy
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), store_stripes=True,
-        mindist=0, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    coords = np.asarray(row["coordinates"], dtype=object)
-    coord_strings = np.array(
-        [".".join(map(str, c)) for c in coords], dtype="U80"
-    )
-    _check_or_freeze(
-        "mode_stripes",
-        {
-            "data": row["data"],
-            "n": int(row["n"]),
-            "horizontal_stripe": np.asarray(
-                row["horizontal_stripe"], dtype=np.float64
-            ),
-            "vertical_stripe": np.asarray(
-                row["vertical_stripe"], dtype=np.float64
-            ),
-            "coordinates": coord_strings,
-        },
-    )
+    _run("mode_stripes", toy)
 
 
 def test_golden_trans(toy):
-    clr, dense, weights = toy
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), trans=True, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_trans",
-        {"data": row["data"], "num": row["num"], "n": int(row["n"])},
-    )
+    _run("mode_trans", toy)
 
 
 def test_golden_bedpe(toy):
-    clr, dense, weights = toy
-    f = many_features()
-    f1 = f[f["chrom"] == "chr1"].reset_index(drop=True)
-    # pair each anchor with the one 4 positions later (fixed separation set)
-    k = 4
-    feats = pd.DataFrame(
-        {
-            "chrom1": "chr1",
-            "start1": f1["start"].values[:-k],
-            "end1": f1["end"].values[:-k],
-            "chrom2": "chr1",
-            "start2": f1["start"].values[k:],
-            "end2": f1["end"].values[k:],
-        }
-    )
-    pup = pileup(
-        clr, feats, features_format="bedpe",
-        view_df=toy_regions(), mindist=0, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_bedpe",
-        {"data": row["data"], "num": row["num"], "n": int(row["n"])},
-    )
+    _run("mode_bedpe", toy)
 
 
 def test_golden_by_window(toy):
-    clr, dense, weights = toy
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), by_window=True,
-        mindist=0, flank=3_000_000,
-    )
-    body = pup[pup["chrom"] != "all"].sort_values(
-        ["chrom", "start"], kind="stable"
-    )
-    got = {
-        "n_per_window": body["n"].values.astype(np.int64),
-        "starts": body["start"].values.astype(np.int64),
-    }
-    for i in range(3):
-        got[f"data_{i}"] = body["data"].iloc[i]
-    _check_or_freeze("mode_by_window", got)
+    _run("mode_by_window", toy)
 
 
 def test_golden_controls(toy):
     """Shifted-control normalization (keyed RNG) — freezes the control
     division path end-to-end."""
-    clr, dense, weights = toy
-    pup = pileup(
-        clr, many_features(), features_format="bed",
-        view_df=toy_regions(), nshifts=2, seed=42,
-        mindist=0, flank=3_000_000,
-    )
-    row = _all_row(pup)
-    _check_or_freeze(
-        "mode_controls",
-        {
-            "data": row["data"],
-            "n": int(row["n"]),
-            "control_n": int(row["control_n"]),
-        },
-    )
+    _run("mode_controls", toy)

@@ -466,28 +466,3 @@ def test_by_window_duplicate_intervals(toy):
         base_body["start"] == base_body["start"].min()
     ].iloc[0]
     assert dup_row["n"] > base_row["n"]
-
-
-def test_stripe_f16_guard_conditions(toy):
-    """f16 stripe transfer only when plane values are bounded: balanced or
-    OOE-normalized; RAW and expected-emission (ooe=False, raw stacks) runs
-    must stay f32 (raw counts can exceed float16's 65504 max)."""
-    from coolpuppy_tpu.expected import expected_cis
-
-    clr, dense, weights = toy
-    exp = expected_cis(clr, view_df=toy_regions())
-
-    def eff(**kw):
-        cc = CoordCreator(
-            toy_features(), 1_000_000, features_format="bed",
-            flank=2_000_000, mindist=0, nshifts=0,
-        )
-        pu = PileUpper(clr, cc, view_df=toy_regions(),
-                       store_stripes=True, **kw)
-        return pu._stripe_f16_effective()
-
-    assert eff(expected=False)  # balanced
-    assert eff(expected=exp, ooe=True, clr_weight_name="weight")
-    assert not eff(expected=False, clr_weight_name=None)  # raw
-    assert not eff(expected=exp, ooe=False, clr_weight_name=None)
-    assert not eff(expected=False, stripe_f16=False)

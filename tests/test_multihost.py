@@ -1,9 +1,8 @@
-"""Multi-host (DCN) execution: a REAL 2-process jax.distributed run through
+"""Multi-host execution: a REAL 2-process jax.distributed run through
 the production engine. Exercises local_region_pairs (round-robin region
 split across processes) and allreduce_region_maps (pickled allgather merge)
 — the code path that mirrors the reference's Pool-over-regions + driver
-reduce (reference coolpup.py:1502–1531) across pod hosts. VERDICT round-2
-missing #1: this path had never executed."""
+reduce (reference coolpup.py:1502–1531) across hosts."""
 
 import os
 import socket

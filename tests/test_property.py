@@ -10,6 +10,7 @@ import pytest
 
 from coolpuppy_tpu import pileup
 
+import golden_cases
 from fixtures import make_toy_cooler, toy_features, toy_regions
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -54,23 +55,7 @@ def test_golden_regression(toy):
     """Fixed-seed workload against a stored golden matrix — guards the whole
     pipeline (cool IO -> coords -> device kernels -> normalization) across
     refactors. Regenerate intentionally with REGEN_GOLDEN=1."""
-    clr, dense, weights = toy
-    pup = pileup(
-        clr,
-        toy_features(),
-        features_format="bed",
-        view_df=toy_regions(),
-        mindist=0,
-        flank=2_000_000,
-        nshifts=2,
-        seed=7,
-        by_strand=True,
-    )
-    got = {
-        f"data_{o}": d
-        for o, d in zip(pup["orientation"], pup["data"])
-    }
-    got["n"] = pup.sort_values("orientation")["n"].values.astype(np.int64)
+    got = golden_cases.case_bystrand_controls(*toy)
     path = os.path.join(GOLDEN, "bystrand_controls.npz")
     if os.environ.get("REGEN_GOLDEN") or not os.path.exists(path):
         os.makedirs(GOLDEN, exist_ok=True)

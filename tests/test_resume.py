@@ -1,5 +1,5 @@
 """Checkpoint/resume of per-region-pair accumulators (SURVEY §5's natural
-resume unit; VERDICT round-2 weak #8: the feature existed untested)."""
+resume unit)."""
 
 import os
 import sys

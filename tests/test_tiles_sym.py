@@ -4,50 +4,14 @@ mirrored scatter exactly — half the scatter/upload for cis regions
 mirrored CSR)."""
 
 import numpy as np
-import pytest
-from scipy import sparse as sp
 
 from coolpuppy_tpu.ops.tiles import (
-    build_tile_stack,
     build_tile_stack_slab,
     build_tile_stack_slab_sym,
-    build_tile_stack_sym,
+    expand_sym_device,
 )
 
 from fixtures import make_toy_cooler
-
-
-def _random_sym_coo(n, nnz, seed):
-    rng = np.random.default_rng(seed)
-    i = rng.integers(0, n, nnz)
-    d = rng.integers(0, 40, nnz)
-    j = np.minimum(i + d, n - 1)
-    v = rng.gamma(1.0, 2.0, nnz).astype(np.float32)
-    coo = sp.coo_matrix(
-        (np.concatenate([v, v]), (np.concatenate([i, j]),
-                                  np.concatenate([j, i]))),
-        shape=(n, n),
-    )
-    coo.sum_duplicates()
-    return coo.tocoo()
-
-
-def test_sym_coo_build_matches_full():
-    coo = _random_sym_coo(700, 20_000, 3)
-    rng = np.random.default_rng(4)
-    r1 = rng.integers(0, 650, 300).astype(np.int64)
-    r2 = np.minimum(r1 + rng.integers(0, 30, 300), 650)
-    full = build_tile_stack(coo, 128, r1=r1, r2=r2, window1=21, window2=21)
-    sym = build_tile_stack_sym(
-        coo, 128, r1=r1, r2=r2, window1=21, window2=21
-    )
-    assert sym.diag_full
-    np.testing.assert_array_equal(full.tile_map, sym.tile_map)
-    np.testing.assert_allclose(
-        sym.expand_host(), full.tiles, rtol=1e-6, atol=1e-6
-    )
-    # genuinely fewer uploaded tiles whenever lower tiles exist
-    assert sym.upper.shape[0] <= full.tiles.shape[0]
 
 
 def test_sym_slab_build_matches_full(tmp_path):
@@ -78,17 +42,19 @@ def test_sym_slab_build_matches_full(tmp_path):
                                equal_nan=True)
 
 
-def test_sym_band_build_matches_full(tmp_path):
+def _toy_slab(seed):
     clr, dense, weights = make_toy_cooler(
-        str(tmp_path / "symband.cool"),
-        chromsizes={"chrZ": 300_000_000},
-        binsize=1_000_000,
-        seed=12,
+        None, chromsizes={"chrZ": 300_000_000}, binsize=1_000_000, seed=seed,
     )
-    slab = clr.fetch_slab(("chrZ", 0, 300_000_000),
+    return clr.fetch_slab(("chrZ", 0, 300_000_000),
                           ("chrZ", 0, 300_000_000), balance="weight")
-    full = build_tile_stack_slab(slab, 128, band=40)
-    sym = build_tile_stack_slab_sym(slab, 128, band=40)
+
+
+def test_sym_all_tiles_build_matches_full():
+    """No window list: every tile the slab's pixels touch."""
+    slab = _toy_slab(12)
+    full = build_tile_stack_slab(slab, 128)
+    sym = build_tile_stack_slab_sym(slab, 128)
     np.testing.assert_array_equal(full.tile_map, sym.tile_map)
     np.testing.assert_allclose(
         sym.expand_host(), full.tiles, rtol=1e-5, atol=1e-6, equal_nan=True
@@ -96,10 +62,7 @@ def test_sym_band_build_matches_full(tmp_path):
 
 
 def test_expand_sym_device_matches_host():
-    coo = _random_sym_coo(600, 10_000, 5)
-    sym = build_tile_stack_sym(coo, 128)
-    from coolpuppy_tpu.ops.tiles import expand_sym_device
-
+    sym = build_tile_stack_slab_sym(_toy_slab(5), 128)
     dev = np.asarray(expand_sym_device(sym))
     host = sym.expand_host()
     np.testing.assert_allclose(dev[: host.shape[0]], host,

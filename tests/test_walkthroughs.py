@@ -63,6 +63,6 @@ def test_api_reference_generates(tmp_path):
         "class `PileUpper",
         "class `CoordCreator",
         "`pileup(",
-        "pallas_gather",
+        "coolpuppy_tpu.ops.gather",
     ):
         assert needle in text, needle

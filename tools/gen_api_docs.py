@@ -1,6 +1,6 @@
 """Generate docs/api_reference.md — a plain-markdown module reference for
 the public surface (the analog of the reference's sphinx API docs,
-reference docs/source/; VERDICT r3 #10).
+reference docs/source/).
 
 Usage: python tools/gen_api_docs.py [output.md]
 """
@@ -27,11 +27,9 @@ MODULES = [
     ("coolpuppy_tpu.plotting", "Plot engine"),
     ("coolpuppy_tpu.ops.tiles", "Block-sparse tile stacks"),
     ("coolpuppy_tpu.ops.gather", "Fused XLA gather/accumulate steps"),
-    ("coolpuppy_tpu.ops.pallas_gather", "Pallas TPU quad kernel"),
     ("coolpuppy_tpu.ops.rescale", "On-device snippet rescaling"),
     ("coolpuppy_tpu.parallel.mesh", "Loci-axis device mesh sharding"),
     ("coolpuppy_tpu.parallel.rowshard", "Row-partitioned tiles + halo"),
-    ("coolpuppy_tpu.parallel.pallas_mesh", "Quad kernel on the mesh"),
     ("coolpuppy_tpu.parallel.distributed", "Multi-host (DCN) execution"),
     ("coolpuppy_tpu.observability", "Phase timers / profiling"),
     ("coolpuppy_tpu.cli.coolpup_cli", "coolpup.py CLI"),
@@ -98,9 +96,6 @@ def document_module(name, title, out):
 
 def main(path=None):
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     out = [
         "# coolpuppy_tpu API reference\n",
         "Generated by `python tools/gen_api_docs.py` — regenerate after "
